@@ -60,7 +60,7 @@ def test_batch_fsm_backend_large_no_restart_uses_speculative():
     # A no-restart stream past MAX_BLOCKS_PER_LANE (the 800x600 fixture
     # class the reference ships) must decode ON DEVICE under backend='fsm'
     # via the speculative equal-split path (the reference's centerpiece,
-    # parser.cu:50-208) — VERDICT r1 required this to be a production
+    # parser.cu:50-208) — this is a production
     # path, not test-only code.
     import os
 
@@ -127,7 +127,7 @@ def test_batch_fsm_malformed_falls_back_to_host_and_counts():
     # in the reserved invalid-code region (T.81 C.2) and latches
     # err_malformed, and the engine redoes the chunk on the host — which
     # records a precise per-image failure in skip mode.  The fallback is
-    # counted in stats (VERDICT r1: error cliffs must be counted).
+    # counted in stats.
     img = parse(make_jpeg_rst(shape=(48, 64), rst_interval=2, seed=21, quality=95))
     img.scan_data = img.scan_data.copy()
     img.scan_data[-img.scan_data.size // 3 :] = 0xFF

@@ -1,7 +1,7 @@
 """Multi-process distributed decode plumbing, exercised for real.
 
 Round-1 shipped `parallel/distributed.py` without ever running it with
-process_count > 1 (VERDICT r1, Missing #3).  These tests launch an actual
+process_count > 1.  These tests launch an actual
 2-process jax.distributed cluster on CPU (coordinator + worker over
 localhost) and verify work sharding is disjoint+covering and the metrics
 reduction sums across hosts — plus the fixed initialize() semantics: a
@@ -92,7 +92,7 @@ def test_two_process_shard_and_allreduce(tmp_path):
 def test_configured_coordinator_failure_raises(tmp_path):
     # A coordinator IS configured but unreachable: initialize must raise
     # (exit nonzero), not degrade to standalone — silent fallback meant
-    # every host decoding the full list (round-1 ADVICE/VERDICT).
+    # every host decoding the full list.
     script = tmp_path / "bad.py"
     script.write_text(
         textwrap.dedent(

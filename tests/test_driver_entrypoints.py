@@ -15,16 +15,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_bench_emits_one_json_line():
     env = dict(os.environ)
-    env.update(
-        JAX_PLATFORMS="cpu",
-        PYTHONPATH=REPO,
-        JAX_COMPILATION_CACHE_DIR=os.path.expanduser("~/.cache/tpujpeg-jax-cache"),
-    )
+    env.update(JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
     out = subprocess.run(
         [
             sys.executable, os.path.join(REPO, "bench.py"),
-            "--images", "2", "--size", "96", "--chunk", "2",
-            "--iters", "1", "--skip-runtime",
+            "--images", "2", "--chunk", "2", "--chunk-e2e", "2",
+            "--iters", "1", "--skip-runtime", "--one-corpus",
         ],
         capture_output=True, text=True, timeout=1200, env=env, cwd=REPO,
     )
@@ -34,9 +30,11 @@ def test_bench_emits_one_json_line():
     rec = json.loads(lines[0])
     # format contract only — the tiny CPU smoke config rounds rates to 0
     for key in ("metric", "value", "unit", "vs_baseline", "bits_per_px",
-                "device_mpixels_per_s", "e2e_mpixels_per_s", "corpus"):
-        assert key in rec
+                "device_mpixels_per_s", "e2e_mpixels_per_s", "corpus",
+                "platform", "device_kind", "device_count", "card"):
+        assert key in rec, rec.get("error", key)
     assert rec["value"] >= 0
+    assert rec["platform"] == "cpu" and rec["device_count"] >= 1
     assert rec["stage_breakdown_s"]["entropy"] >= 0
 
 

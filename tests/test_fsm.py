@@ -205,8 +205,7 @@ def test_fsm_grouped_stride_packing():
 
 @pytest.mark.parametrize("symmap", [True, False])
 def test_symmap_matches_piece_tree(monkeypatch, symmap):
-    # the two-level symbol map (production default since the measured
-    # on-chip win, headline_r3_symmap.json) and the legacy flat piece
+    # the two-level symbol map (the default) and the legacy flat piece
     # tree (TPUJPEG_SYMMAP=0) must both decode bit-identically to the
     # oracle — keep BOTH paths covered regardless of the env default
     monkeypatch.setattr(fsm, "_SYMMAP", symmap)
@@ -221,3 +220,21 @@ def test_symmap_matches_piece_tree(monkeypatch, symmap):
     from tpujpeg.oracle import decoder as oracle
 
     np.testing.assert_array_equal(got, oracle.entropy_decode(img))
+
+
+def test_symmap_bf16_product_exact():
+    # the two-level map reads each symbol through a bf16 one-hot product
+    # (oh_hi @ grid, ops/fsm.py): every byte value 0..255 must come back
+    # exactly, at every grid position, for grids as tall as table sets need
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(0)
+    for H in (16, 17, 40):
+        g = np.arange(H * 16)
+        vals = rng.permutation(np.resize(np.arange(256), H * 16))
+        grid = vals.reshape(H, 16)
+        oh_hi = (g[:, None] >> 4) == np.arange(H)[None, :]
+        row = jnp.asarray(oh_hi, jnp.bfloat16) @ jnp.asarray(grid, jnp.bfloat16)
+        got = np.asarray(row.astype(jnp.float32))[g, g & 15]
+        np.testing.assert_array_equal(got.astype(np.int64), vals)
+        assert set(vals.tolist()) == set(range(256))

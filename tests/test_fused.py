@@ -41,7 +41,7 @@ def test_fused_matches_oracle_and_staged(rst_imgs):
         ]
     ).astype(np.int32)
     B = len(imgs)
-    rgb, risk, coeffs, dc, err_mal, err_env, _slot, _ = fused.decode_chunk_fused(
+    rgb, risk, coeffs, dc, err_mal, err_env, _ = fused.decode_chunk_fused(
         plan, jnp.asarray(quant), geom, B
     )
     assert not bool(jnp.any(err_mal)) and not bool(jnp.any(err_env))

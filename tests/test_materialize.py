@@ -1,18 +1,20 @@
-"""Pallas materialization kernels == XLA butterflies, bit for bit.
+"""Materialization (fsm._materialize_events) == NumPy truth, bit for bit.
 
-The Pallas path (ops/materialize.py) must place exactly the same
-coefficients as the XLA compact+spread reference for any event matrix
-satisfying the FSM's emission contract: per lane, valid events appear in
-row order with strictly increasing targets.
+The compact + spread butterfly networks must place exactly the
+coefficients a direct NumPy placement would, for any event matrix that
+satisfies the FSM's emission contract: per lane, valid events appear in
+row order with strictly increasing targets.  The shapes cover N < M,
+N > M (spread truncation), window-straddling sizes and decode-realistic
+per-block event counts, dense groups included.  materialize_checked's
+optional checksum is pinned both ways.
 """
 
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
-from tpujpeg.ops import fsm, materialize
+from tpujpeg.ops import fsm
 
 
 def _random_events(rng, n_rows, max_blk, L, density):
@@ -32,254 +34,116 @@ def _random_events(rng, n_rows, max_blk, L, density):
     return ev, want
 
 
-def _xla_place(ev, M):
-    ev = jnp.asarray(ev)
-    valid = ev >= 0
-    cv, cp = fsm._compact(valid, ev)
-    blk = (cp >> 18) & 0x1FFF
-    z = (cp >> 12) & 63
-    val = (cp & 0xFFF) - 2048
-    return np.asarray(fsm._spread(cv, val, blk * 64 + z, M))
-
-
-@pytest.mark.parametrize("density", [0.0, 0.15, 0.6])
-def test_pallas_matches_xla_and_truth(density):
-    rng = np.random.default_rng(int(density * 100) + 1)
-    n_rows, max_blk, L = 96, 2, 128
-    M = max_blk * 64
-    ev, want = _random_events(rng, n_rows, max_blk, L, density)
-    got_xla = _xla_place(ev, M)
-    np.testing.assert_array_equal(got_xla, want)
-    got_pl = np.asarray(
-        materialize.place_events_pallas(jnp.asarray(ev), M=M, interpret=True)
-    ).astype(np.int32)
-    np.testing.assert_array_equal(got_pl, want)
-
-
-def test_pallas_taller_than_M():
-    # N > M exercises the truncation branch of the spread kernel
-    rng = np.random.default_rng(7)
-    n_rows, max_blk, L = 192, 2, 128
-    M = max_blk * 64
-    ev, want = _random_events(rng, n_rows, max_blk, L, 0.3)
-    got = np.asarray(
-        materialize.place_events_pallas(jnp.asarray(ev), M=M, interpret=True)
-    ).astype(np.int32)
-    np.testing.assert_array_equal(got, want)
-
-
-def test_use_pallas_gating(monkeypatch):
-    # experiment is opt-in, and even then never on CPU backends
-    if jax.default_backend() != "cpu":
-        pytest.skip("gating asserts are for the CPU backend")
-    monkeypatch.delenv("TPUJPEG_PALLAS", raising=False)
-    assert not materialize._use_pallas(1024, 1024, 256)
-    monkeypatch.setenv("TPUJPEG_PALLAS", "1")
-    assert not materialize._use_pallas(1024, 1024, 256)  # cpu backend
-
-
-@pytest.mark.parametrize(
-    "n_rows,max_blk", [(2304, 64), (2500, 35), (700, 47), (4000, 33)]
-)
-def test_v3_matches_xla(n_rows, max_blk):
-    # shapes straddle the window size: padding of N and M to _W multiples,
-    # N > M truncation, and multi-window grids are all exercised
-    rng = np.random.default_rng(n_rows)
-    L = 128
-    M = max_blk * 64
-    ev, want = _random_events(rng, n_rows, max_blk, L, 0.25)
-    ev[:, 0] = -1  # fully-empty lane
-    want[:, 0] = 0
-    got = np.asarray(
-        materialize.place_events_v3(jnp.asarray(ev), M=M, interpret=True)
-    ).astype(np.int32)
-    np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(_xla_place(ev, M), want)
-
-
-def test_v3_gating(monkeypatch):
-    # default-on for TPU backends only, bounded by int16 offsets
-    if jax.default_backend() == "cpu":
-        assert not materialize._use_pallas_v3(7680, 16384, 2560)  # cpu backend
-    else:
-        assert materialize._use_pallas_v3(7680, 16384, 2560)
-        assert not materialize._use_pallas_v3(7680, 40000, 2560)  # int16 bound
-    monkeypatch.setenv("TPUJPEG_PALLAS_V3", "0")
-    assert not materialize._use_pallas_v3(7680, 16384, 2560)
-
-
-def test_v3_compiled_on_chip():
-    # Mosaic lowering limits are invisible to interpret mode: when the
-    # real chip is available, the COMPILED kernels must match exactly
-    if jax.default_backend() != "tpu":
-        pytest.skip("needs the real chip (TPUJPEG_TEST_TPU=1)")
-    rng = np.random.default_rng(42)
-    n_rows, max_blk, L = 2304, 40, 256
-    M = max_blk * 64
-    ev, want = _random_events(rng, n_rows, max_blk, L, 0.25)
-    got = np.asarray(
-        materialize.place_events_v3(jnp.asarray(ev), M=M)
-    ).astype(np.int32)
-    np.testing.assert_array_equal(got, want)
-
-@pytest.mark.parametrize("kc", [2, 3, 4])
-@pytest.mark.parametrize("n_rows,max_blk", [(4000, 80), (2500, 35)])
-def test_v3_wider_span_matches_xla(kc, n_rows, max_blk):
-    # the multi-window stacks (stages d < kc*W in one kernel) must be
-    # bit-identical to the kc=1 shape and the XLA network; kc=3 exercises
-    # the power-of-two clamp in _span_for
-    rng = np.random.default_rng(1000 + kc + n_rows)
-    L = 128
-    M = max_blk * 64
-    ev, want = _random_events(rng, n_rows, max_blk, L, 0.25)
-    got = np.asarray(
-        materialize.place_events_v3(jnp.asarray(ev), M=M, interpret=True,
-                                    kc=kc)
-    ).astype(np.int32)
-    np.testing.assert_array_equal(got, want)
-
-
-# ---------------------------------------------------------------------------
-# Slot spread (round 5): compressed-coordinate materialization
-# ---------------------------------------------------------------------------
-
-
 def _block_events(rng, n_rows, max_blk, L, mean_ev, heavy=()):
     """Decode-realistic events: per block, a random set of distinct
     ascending zigzag positions (the FSM emission contract).  `heavy`
-    lanes get one group stuffed past any capacity.  Returns (ev, want,
-    expected per-lane overflow for the module's C/G)."""
-    C, G = materialize._SLOT_C, materialize._SLOT_G
+    lanes get their first 8 blocks completely full (64 events each)."""
     ev = np.full((n_rows, L), -1, np.int32)
     want = np.zeros((max_blk * 64, L), np.int32)
-    ovf = np.zeros(L, bool)
     for lane in range(L):
         rows = []
-        gcnt = {}
         for b in range(max_blk):
             n = min(64, int(rng.poisson(mean_ev)))
-            if lane in heavy and b < G:
-                n = 64  # G*64 > C for any C < 64G
-            if not n:
-                continue
-            gcnt[b // G] = gcnt.get(b // G, 0) + n
+            if lane in heavy and b < 8:
+                n = 64
             for z in np.sort(rng.choice(64, n, replace=False)):
                 v = int(rng.integers(1, 2047)) * (1 if rng.random() < .5
                                                   else -1)
                 rows.append((b, int(z), v))
                 want[b * 64 + z, lane] = v
-        ovf[lane] = any(c > C for c in gcnt.values())
         assert len(rows) <= n_rows
         pos = np.sort(rng.choice(n_rows, len(rows), replace=False))
         for p, (b, z, v) in zip(pos, rows):
             ev[p, lane] = (b << 18) | (z << 12) | (v + 2048)
-    return ev, want, ovf
+    return ev, want
+
+
+def _place(ev, M):
+    return np.asarray(fsm._materialize_events(jnp.asarray(ev), M))
+
+
+@pytest.mark.parametrize("density", [0.0, 0.15, 0.6])
+def test_materialize_matches_truth(density):
+    rng = np.random.default_rng(int(density * 100) + 1)
+    n_rows, max_blk, L = 96, 2, 128
+    ev, want = _random_events(rng, n_rows, max_blk, L, density)
+    np.testing.assert_array_equal(_place(ev, max_blk * 64), want)
+
+
+def test_materialize_taller_than_M():
+    # N > M exercises the truncation branch of the spread
+    rng = np.random.default_rng(7)
+    n_rows, max_blk, L = 192, 2, 128
+    ev, want = _random_events(rng, n_rows, max_blk, L, 0.3)
+    np.testing.assert_array_equal(_place(ev, max_blk * 64), want)
+
+
+@pytest.mark.parametrize(
+    "n_rows,max_blk",
+    [(2304, 64), (2500, 35), (700, 47), (4000, 33), (4000, 80)],
+)
+def test_materialize_shapes(n_rows, max_blk):
+    # N and M on both sides of powers of two, N > M and N < M, with a
+    # fully-empty lane
+    rng = np.random.default_rng(n_rows + max_blk)
+    L = 128
+    ev, want = _random_events(rng, n_rows, max_blk, L, 0.25)
+    ev[:, 0] = -1
+    want[:, 0] = 0
+    np.testing.assert_array_equal(_place(ev, max_blk * 64), want)
 
 
 @pytest.mark.parametrize("n_rows,max_blk,mean_ev", [
-    (2600, 60, 20),     # Msp == 2W floor
-    (2100, 33, 4),      # sparse, slot space padded past rank space
-    (4200, 120, 26),    # dense, Np > Msp truncation branch
+    (2600, 60, 20),     # photo-density blocks
+    (2100, 33, 4),      # sparse
+    (4200, 120, 26),    # dense, N > rank space
+    (2600, 60, 8),
+    (2100, 120, 3),     # short scan, tall block space: targets >> ranks
 ])
-def test_slots_match_truth(n_rows, max_blk, mean_ev):
-    rng = np.random.default_rng(n_rows + max_blk)
-    L = 128
-    M = max_blk * 64
-    ev, want, ovf_want = _block_events(rng, n_rows, max_blk, L, mean_ev)
-    dense, ovf = materialize.place_events_slots(
-        jnp.asarray(ev), M=M, interpret=True
-    )
-    dense, ovf = np.asarray(dense).astype(np.int32), np.asarray(ovf)
-    np.testing.assert_array_equal(ovf, ovf_want)
-    ok = ~ovf_want
-    np.testing.assert_array_equal(dense[:, ok], want[:, ok])
+def test_materialize_block_events(n_rows, max_blk, mean_ev):
+    rng = np.random.default_rng(n_rows + max_blk + mean_ev)
+    ev, want = _block_events(rng, n_rows, max_blk, 128, mean_ev)
+    np.testing.assert_array_equal(_place(ev, max_blk * 64), want)
 
 
-def test_slots_overflow_latch_is_per_lane():
-    # a stuffed group must latch ONLY its lane; every other lane stays
-    # bit-exact (the batch engine retries latched chunks classically)
+def test_materialize_full_blocks_exact():
+    # lanes whose leading blocks carry all 64 coefficients each: no
+    # capacity limit anywhere, every lane bit-exact
     rng = np.random.default_rng(7)
-    n_rows, max_blk, L = 2600, 60, 128
-    M = max_blk * 64
-    ev, want, ovf_want = _block_events(
-        rng, n_rows, max_blk, L, 10, heavy=(3, 77)
-    )
-    assert ovf_want[3] and ovf_want[77] and ovf_want.sum() == 2
-    dense, ovf = materialize.place_events_slots(
-        jnp.asarray(ev), M=M, interpret=True
-    )
-    dense, ovf = np.asarray(dense).astype(np.int32), np.asarray(ovf)
-    np.testing.assert_array_equal(ovf, ovf_want)
-    ok = ~ovf_want
-    np.testing.assert_array_equal(dense[:, ok], want[:, ok])
+    ev, want = _block_events(rng, 2600, 60, 128, 10, heavy=(3, 77))
+    np.testing.assert_array_equal(_place(ev, 60 * 64), want)
 
 
-def test_slots_gating(monkeypatch):
-    if jax.default_backend() == "cpu":
-        assert not materialize._use_pallas_slots(7680, 15360, 5120)
+def test_materialize_checked_off_by_default(monkeypatch):
+    monkeypatch.delenv("TPUJPEG_SELFCHECK", raising=False)
+    rng = np.random.default_rng(3)
+    ev, want = _random_events(rng, 96, 2, 128, 0.2)
+    err = jnp.zeros(128, bool)
+    dense, err_out = fsm.materialize_checked(jnp.asarray(ev), 128, err)
+    np.testing.assert_array_equal(np.asarray(dense), want)
+    assert not np.asarray(err_out).any()
+
+
+def test_materialize_checked_latches_lost_event(monkeypatch):
+    # with the checksum on, an event whose target lies past M cannot land
+    # in the dense tensor: exactly its lane latches err_mal
+    monkeypatch.setenv("TPUJPEG_SELFCHECK", "1")
+    rng = np.random.default_rng(4)
+    ev, want = _random_events(rng, 96, 2, 128, 0.2)
+    ev[95, 5] = (3 << 18) | (1 << 12) | (7 + 2048)   # block 3 >= max_blk
+    err = jnp.zeros(128, bool)
+    dense, err_out = fsm.materialize_checked(jnp.asarray(ev), 128, err)
+    err_out = np.asarray(err_out)
+    assert err_out[5] and err_out.sum() == 1
+    keep = np.arange(128) != 5
+    np.testing.assert_array_equal(np.asarray(dense)[:, keep], want[:, keep])
+
+
+@pytest.mark.parametrize("value,on", [("1", True), ("0", False),
+                                      ("auto", False), (None, False)])
+def test_selfcheck_switch(monkeypatch, value, on):
+    if value is None:
+        monkeypatch.delenv("TPUJPEG_SELFCHECK", raising=False)
     else:
-        assert materialize._use_pallas_slots(7680, 15360, 5120)
-        # slot space: ceil(max_blk/G)*C*32 <= 32768 blocks bound
-        assert not materialize._use_pallas_slots(7680, 70000 * 64, 5120)
-    monkeypatch.setenv("TPUJPEG_SLOTS", "0")
-    assert not materialize._use_pallas_slots(7680, 15360, 5120)
-
-
-def test_slots_compiled_on_chip():
-    # Mosaic lowering limits are invisible to interpret mode: the
-    # compiled slot kernels must match exactly on the real chip
-    if jax.default_backend() != "tpu":
-        pytest.skip("needs the real chip (TPUJPEG_TEST_TPU=1)")
-    rng = np.random.default_rng(43)
-    n_rows, max_blk, L = 2600, 60, 256
-    M = max_blk * 64
-    ev, want, ovf_want = _block_events(rng, n_rows, max_blk, L, 18,
-                                       heavy=(9,))
-    dense, ovf = materialize.place_events_slots(jnp.asarray(ev), M=M)
-    dense, ovf = np.asarray(dense).astype(np.int32), np.asarray(ovf)
-    np.testing.assert_array_equal(ovf, ovf_want)
-    ok = ~ovf_want
-    np.testing.assert_array_equal(dense[:, ok], want[:, ok])
-
-
-def test_slots_c128_matches_truth():
-    # content-adaptive capacity: C=128 halves the slot space again on
-    # sparse corpora; its narrower spread window (Ws=512, dense frame
-    # capped at 2048 rows) must stay bit-exact
-    rng = np.random.default_rng(11)
-    n_rows, max_blk, L = 2600, 60, 128
-    M = max_blk * 64
-    ev, want, _ = _block_events(rng, n_rows, max_blk, L, 8)
-    # recompute overflow for C=128
-    G = materialize._SLOT_G
-    dense, ovf = materialize.place_events_slots(
-        jnp.asarray(ev), M=M, C=128, interpret=True
-    )
-    dense, ovf = np.asarray(dense).astype(np.int32), np.asarray(ovf)
-    cnt = (want != 0).reshape(-1, 64, L).sum(1)        # [max_blk, L]
-    pad = (-len(cnt)) % G
-    if pad:
-        cnt = np.concatenate([cnt, np.zeros((pad, L), cnt.dtype)])
-    ovf_want = (cnt.reshape(-1, G, L).sum(1) > 128).any(0)
-    np.testing.assert_array_equal(ovf, ovf_want)
-    ok = ~ovf_want
-    np.testing.assert_array_equal(dense[:, ok], want[:, ok])
-
-
-def test_slots_msp_taller_than_np():
-    # photo-like shape: short scans (small N) with a tall block space —
-    # slot space pads PAST the rank space (fit()'s concatenate branch),
-    # and spread targets exceed every rank row.  First seen live on the
-    # photo-corpus bench; must be covered at interpret level.
-    rng = np.random.default_rng(21)
-    n_rows, max_blk, L = 2100, 120, 128
-    M = max_blk * 64
-    ev, want, ovf_want = _block_events(rng, n_rows, max_blk, L, 3)
-    assert not ovf_want.any()
-    dense, ovf = materialize.place_events_slots(
-        jnp.asarray(ev), M=M, interpret=True
-    )
-    assert not np.asarray(ovf).any()
-    np.testing.assert_array_equal(
-        np.asarray(dense).astype(np.int32), want
-    )
+        monkeypatch.setenv("TPUJPEG_SELFCHECK", value)
+    assert fsm._selfcheck_enabled() is on

@@ -1,4 +1,4 @@
-"""In-the-wild JPEG hardening (VERDICT r4 #8).
+"""In-the-wild JPEG hardening.
 
 The reference's parser hardcodes a 5 MiB scan buffer, assumes exactly
 2 DQT + up-to-4 back-to-back DHT segments, and walks only 6 marker

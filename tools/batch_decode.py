@@ -19,8 +19,6 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", os.path.expanduser("~/.cache/tpujpeg-jax-cache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0.5")
 
 
 def main(argv=None) -> int:
@@ -29,7 +27,8 @@ def main(argv=None) -> int:
     ap.add_argument("dst_dir")
     ap.add_argument("--backend", default="host",
                     choices=["auto", "host", "fsm", "oracle"])
-    ap.add_argument("--format", default="png", choices=["png", "array"])
+    ap.add_argument("--format", default="array", choices=["array", "png"],
+                    help="png needs Pillow")
     ap.add_argument("--chunk", type=int, default=16)
     ap.add_argument("--size-buckets", action="store_true",
                     help="group images by size-class bucket instead of "
@@ -43,6 +42,9 @@ def main(argv=None) -> int:
 
     from tpujpeg.io.arrayio import write_array
     from tpujpeg.runtime.batch import BatchDecoder
+    from tpujpeg.utils.cache import compile_cache_dir
+
+    compile_cache_dir()
 
     os.makedirs(args.dst_dir, exist_ok=True)
     manifest_path = args.manifest or os.path.join(args.dst_dir, "manifest.jsonl")

@@ -1,8 +1,8 @@
 """Exhaustive validation: device (pure-float32) color conversion == oracle.
 
 The reference computes each channel with double-precision products rounded
-once to float32 (cpp color.cpp:8-19).  TPUs have no f64, so the device path
-must use f32 arithmetic.  IDCT output is clipped to [-256, 255]
+once to float32 (cpp color.cpp:8-19).  The device path computes in f32
+only.  IDCT output is clipped to [-256, 255]
 (parser.cu:211-215), so the color-conversion input domain is finite:
 512^3 = 134M (Y, Cb, Cr) triples.  This script checks every one of them:
 if the final clamped integer RGB matches the oracle everywhere, the f32
@@ -31,7 +31,7 @@ def oracle_rgb(y, cb, cr):
 
 
 def device_rgb(y, cb, cr):
-    """Candidate f32-only formula (what the TPU kernel computes)."""
+    """Candidate f32-only formula (what the device computes)."""
     yf = y.astype(np.float32)
     cbf = cb.astype(np.float32)
     crf = cr.astype(np.float32)

@@ -2,7 +2,7 @@
 
 Parity with the reference's data_preprocessing/image_converter.py:6-22
 (which shells out to simplejpeg to force 4:4:4), plus the one option that
-matters most on TPU: `--rst-rows N` writes a DRI marker every N MCU rows.
+matters most for the device decoder: `--rst-rows N` writes a DRI marker every N MCU rows.
 Restart markers are what make entropy decode parallel — on the host
 (OpenMP across segments) and on the device (FSM lanes) — at ~1-3% size
 overhead.  Use this to prepare datasets for tpujpeg the way the reference

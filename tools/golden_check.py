@@ -4,7 +4,7 @@ Parity with the reference's testing/compare.py:37-89 workflow (run decoder
 per image, diff against ground_truth/ exactly, print max diff on failure)
 without the subprocess round-trip: the decoder is called in-process.
 
-  python tools/golden_check.py [--backend tpu|oracle|batch] [--images DIR]
+  python tools/golden_check.py [--backend device|cpu|oracle|batch] [--images DIR]
 """
 
 from __future__ import annotations
@@ -18,8 +18,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--backend", default="tpu",
-                    choices=["tpu", "oracle", "batch"])
+    ap.add_argument("--backend", default="device",
+                    choices=["device", "cpu", "oracle", "batch"])
     ap.add_argument(
         "--images",
         default=os.path.join(os.path.dirname(__file__), "..", "tests", "fixtures"),

@@ -3,7 +3,7 @@
 Replaces the reference's hardcoded-path drivers (`main.cu:7-40`, output dir
 baked into `write()`, parser.cu:732) with a proper CLI:
 
-  python -m tpujpeg.cli decode IMG.jpg -o OUT.array [--backend tpu|cpu|oracle]
+  python -m tpujpeg.cli decode IMG.jpg -o OUT.array [--backend device|cpu|oracle]
   python -m tpujpeg.cli info IMG.jpg
   python -m tpujpeg.cli compare OUT.array GOLDEN.array [--tolerance N]
 """
@@ -30,7 +30,7 @@ def _cmd_decode(args) -> int:
         # when available — one image cannot amortize a device dispatch
         from .runtime import host as _host
 
-        backend = "cpu" if _host._load_native() is not None else "tpu"
+        backend = "cpu" if _host._load_native() is not None else "device"
     if backend == "oracle":
         from .oracle import decoder as oracle
 
@@ -119,11 +119,11 @@ def main(argv=None) -> int:
     d.add_argument("input")
     d.add_argument("-o", "--output", default=None)
     d.add_argument(
-        "--backend", choices=["auto", "tpu", "cpu", "oracle"],
+        "--backend", choices=["auto", "device", "cpu", "oracle"],
         default="auto",
         help="auto = native C++ when available (single decodes cannot "
              "amortize a device dispatch; both paths are bit-exact); "
-             "tpu = device pipeline; cpu = force the native C++ decoder "
+             "device = device pipeline; cpu = force the native C++ decoder "
              "(entropy + pixels, OpenMP); oracle = NumPy reference",
     )
     d.add_argument(

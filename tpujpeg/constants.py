@@ -1,4 +1,4 @@
-"""Shared constants for the TPU JPEG decode engine.
+"""Shared constants for the JPEG decode engine.
 
 Semantics mirror the reference decoder (debesheedas/GPU-JPEG-Decoder) so that
 decoded pixels are bit-exact against its golden outputs:

@@ -1,4 +1,4 @@
-"""Structured error surface for the TPU JPEG engine.
+"""Structured error surface for the JPEG engine.
 
 The reference's only error handling is a CUDA-status wrapper
 (`cuda-decoder/src/parser.cu:317-321`); malformed streams hang or crash it.

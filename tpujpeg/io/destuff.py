@@ -13,7 +13,7 @@ That loop is serial and becomes the host bottleneck at batch scale (SURVEY
 
 Restart markers give the entropy decoder its parallelism: each segment starts
 byte-aligned with DC predictors reset (ITU T.81 E.1.2), so segments decode
-independently — the TPU-native answer to the reference's speculative
+independently — the device decoder's answer to the reference's speculative
 self-synchronizing bitstream split (parser.cu:132-208).
 """
 

@@ -12,8 +12,8 @@ For decoding we do not use the reference's 256-way linear scan
 lookup table over a 16-bit peek window: LUT[peek16 >> (16-maxlen)] ->
 (symbol, code_length).  Since JPEG codes are <= 16 bits and prefix-free, every
 16-bit window maps to exactly one leading code.  This turns one decode step
-into a single gather, which is the shape both the host runtime and the Pallas
-device decoder want.
+into a single gather, which is the shape the host runtime and the gather
+device decoder (ops/entropy.py) want.
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ SOI/APP0/DQT/SOF0/DHT/SOS for 4:4:4 streams and does not understand DRI/RSTn;
 we additionally handle arbitrary APPn/COM segments, multiple tables per
 DQT/DHT segment, 16-bit quant tables, subsampled chroma (4:2:0/4:2:2/4:1:1,
 grayscale), and restart intervals — which are what make principled
-segment-parallel entropy decoding possible on TPU.
+segment-parallel entropy decoding possible on the device.
 """
 
 from __future__ import annotations

@@ -2,10 +2,10 @@
 
 Reference semantics (cpp color.cpp:8-19 / cuda parser.cu:566-573) use double
 intermediates rounded once per channel to float32, then a truncating int
-cast and clamp to [0,255].  TPUs have no f64, so the device computes in f32
-and flags pixels whose value lands within EPS of a truncation boundary; the
-host repairs flagged pixels with the exact oracle math (it owns the
-coefficients, so repair costs a few vectorized 8x8 IDCTs).
+cast and clamp to [0,255].  The device computes in f32 and flags pixels
+whose value lands within EPS of a truncation boundary; the host repairs
+flagged pixels with the exact oracle math (it owns the coefficients, so
+repair costs a few vectorized 8x8 IDCTs).
 
 Exactness budget (tools/check_color_risk.py, exhaustive over the full
 reachable domain [-256,255]^3 — IDCT output is clipped there):
@@ -13,12 +13,10 @@ reachable domain [-256,255]^3 — IDCT output is clipped there):
   - G: max |f32 - oracle| = 1.23e-4; all 281 truncation flips lie within
     3.1e-5 of a boundary.
 EPS = 1e-3 gives an 8x margin over the worst observed deviation and also
-absorbs compiler rounding differences (e.g. FMA fusion on the VPU, which
+absorbs compiler rounding differences (e.g. FMA contraction, which
 contributes at most ~1 extra ulp); flagged fraction is ~0.2%/channel.
-tools/check_color_device.py re-proves the bound against the actual compiled
-TPU kernel; the round-2 run over 33.5M domain points on the real v5e found
-0 unflagged mismatches at 0.978% flagged
-(benchmark_results/color_device_proof.json).
+tools/check_color_device.py re-proves the bound against the kernel the
+current backend compiles (PERF.md records the GPU run).
 """
 
 from __future__ import annotations
@@ -44,9 +42,8 @@ def color_core(
     """The exact f32 conversion: int planes -> ([r, g, b] int32 in
     [0, 255], risky bool).
 
-    Kept dtype-neutral (int32 out, no uint8 cast) so the Pallas fused
-    pixel kernel (ops/pixels_pallas.py) and the XLA path share ONE
-    definition of the math the exactness proof covers.
+    Kept dtype-neutral (int32 out, no uint8 cast): ONE definition of the
+    math the exactness proof covers, whatever layout the caller wants.
     """
     yf = y.astype(jnp.float32)
     r = _F_RED * cr.astype(jnp.float32) + yf
@@ -71,9 +68,8 @@ def color_channels(
     """Shared core: int planes -> ([r, g, b] uint8 list, risky bool).
 
     Channels are returned UNstacked so callers choose the layout: the
-    planar device pipeline stacks them on a LEADING axis (a trailing
-    length-3 minor dim runs at 3/128 VPU lane utilization — measured 3x
-    whole-program cost, PERFORMANCE.md).
+    planar device pipeline stacks them on a LEADING axis, keeping the
+    long pixel axis minor.
     """
     rgb, risky = color_core(y, cb, cr)
     return [ch.astype(jnp.uint8) for ch in rgb], risky

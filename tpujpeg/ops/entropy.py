@@ -1,18 +1,18 @@
 """Device-side lockstep-lane Huffman decode via gathers (superseded).
 
-NOTE: measurement showed XLA serializes dynamic gathers at ~8 ns/element
-on this TPU path, capping this design near 25 MB/s; the production device
-decoder is the gather-free FSM in ops/fsm.py.  This module is kept as the
-measured alternative (its tests pin down the same bit-exactness contract)
-and as the simplest reference for the lane/segment plan layout.
+NOTE: the production device decoder is the gather-free FSM in
+ops/fsm.py, chosen where dynamic gathers were slow.  This module is kept
+as the alternative (its tests pin down the same bit-exactness contract),
+as the simplest reference for the lane/segment plan layout, and as the
+starting point for a table-lookup decoder on the GPU (ROADMAP X3/X4).
 
 The reference's headline component is a speculative self-synchronizing
 parallel Huffman decoder: split the bitstream into equal segments, decode
 each on one CUDA thread, iterate until segment boundary states agree, then
 prefix-sum symbol counts and re-decode with writes
 (cuda-decoder/src/parser.cu:50-208).  A thread-per-segment scalar loop is
-the wrong shape for a TPU — there are no independent scalar threads.  The
-TPU-native formulation is **lockstep lanes over the VPU**:
+the wrong shape for a vector machine.  The formulation here is
+**lockstep vector lanes**:
 
   lane  = one entropy segment (restart interval, ITU T.81 E.1.2 — each
           starts byte-aligned with DC predictors reset, so segments are
@@ -196,7 +196,7 @@ def build_segment_plan(imgs: list[JpegImage]) -> SegmentPlan:
 
 
 def _build_windows(scan: jnp.ndarray) -> jnp.ndarray:
-    """uint8 [n] -> uint32 [n-3] big-endian 4-byte windows (one-time VPU op)."""
+    """uint8 [n] -> uint32 [n-3] big-endian 4-byte windows (one-time op)."""
     s = scan.astype(jnp.uint32)
     return (s[:-3] << 24) | (s[1:-2] << 16) | (s[2:-1] << 8) | s[3:]
 
@@ -302,8 +302,7 @@ def decode_segments(
     # scan over chunks of K steps whose ys ARE the emit buffers (scan writes
     # ys in place, no carry copies), with a lax.cond that skips the inner
     # decode once every lane is done — chunks after the deepest lane cost
-    # only a [K, L] sentinel fill.  The decode itself runs entirely on the
-    # VPU: ~130 ns per 4-symbol chunk step at 640 lanes.
+    # only a [K, L] sentinel fill.
     K = 256
     n_chunks = -(-cap // K)
 

@@ -6,11 +6,10 @@ shifts right 8, column pass scales by 2^8, shifts right 14, and clips to
 [-256, 255].  All arithmetic is int32 — the same width the reference uses —
 so any overflow wraps identically.
 
-TPU mapping: the butterflies are pure elementwise int32 ops over [N, 8]
-column/row slices, which XLA vectorizes onto the VPU across the block axis.
-There is no matmul here on purpose: an MXU float IDCT could not reproduce
-the reference's shift/truncation rounding, and the VPU form is already
-memory-bound, not compute-bound (SURVEY §8 hard-part #1).
+Device mapping: the butterflies are pure elementwise int32 ops over [N, 8]
+column/row slices, which XLA vectorizes across the block axis.  There is
+no matmul here on purpose: a float matrix IDCT could not reproduce the
+reference's shift/truncation rounding (SURVEY §8 hard-part #1).
 
 The reference's zero-AC "shortcut" blocks (cpp idct.cpp:38-41,83-85) are
 arithmetically equal to the general butterflies (proved in
@@ -114,9 +113,7 @@ def idct_planes(planes64: jnp.ndarray) -> jnp.ndarray:
     """IDCT in coefficient-major (structure-of-arrays) layout.
 
     `planes64` is [..., 64, N]: row p holds natural-order coefficient p of N
-    blocks.  This is the VPU-native layout (position = sublane, block = lane)
-    used by the Pallas fused kernel; kept here so both paths share the exact
-    butterfly definitions.
+    blocks, so the long block axis stays minor (pipeline._idct_planar).
     """
     x = planes64.astype(jnp.int32)
     rows = []

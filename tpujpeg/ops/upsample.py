@@ -19,10 +19,10 @@ Semantics (integer-exact to libjpeg):
     independent rounded passes;
   - other factors (4:1:1's 4x) fall back to box, as libjpeg does.
 
-Everything is elementwise + static slicing + reshape: VPU-only on TPU, no
-gathers.  All functions take the array namespace `xp` (jax.numpy on
-device, numpy in the oracle/repair paths) so device and host share one
-definition — there is nothing to drift.
+Everything is elementwise + static slicing + reshape: no gathers.  All
+functions take the array namespace `xp` (jax.numpy on device, numpy in
+the oracle/repair paths) so device and host share one definition —
+there is nothing to drift.
 
 Edge note: filters run over the full DCT-padded plane (static shapes under
 jit), so replication happens at the padded edge, not the visible-image

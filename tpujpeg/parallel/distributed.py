@@ -1,10 +1,10 @@
 """Multi-host decode: jax.distributed + per-host work sharding.
 
 The reference is single-GPU single-process (SURVEY §2.7: no NCCL/MPI
-anywhere).  For multi-host TPU pods the decode problem is embarrassingly
+anywhere).  Across hosts the decode problem is embarrassingly
 data-parallel: each host parses and entropy-decodes its share of the file
-list and feeds its local chips; the only cross-host communication is the
-final metrics reduction (DCN allgather) and, in stripe mode, the ICI
+list and feeds its local devices; the only cross-host communication is
+the final metrics reduction (an allgather) and, in stripe mode, the
 all_gather inside `parallel.sharding`.
 
 Typical use (same script on every host):
@@ -12,14 +12,14 @@ Typical use (same script on every host):
     from tpujpeg.parallel import distributed as dist
     dist.initialize()                       # jax.distributed.initialize()
     mine = dist.shard_list(all_paths)       # this host's files
-    dec = BatchDecoder(...)                 # local chips only
+    dec = BatchDecoder(...)                 # local devices only
     ... decode(mine) ...
     totals = dist.allreduce_metrics({"images": len(mine), "bytes": n})
 
 Initialization semantics (fixed after round-1 review): when a coordinator
 IS configured — explicit kwargs, or any of the environment variables JAX
 itself auto-detects (JAX_COORDINATOR_ADDRESS, COORDINATOR_ADDRESS, or a
-TPU/SLURM/OMPI cluster environment) — a failure to connect is a hard
+SLURM/OMPI cluster environment) — a failure to connect is a hard
 error.  Silent standalone fallback only happens when nothing at all is
 configured; otherwise every host would quietly decode the FULL work list
 (duplicate work, wrong totals).

@@ -2,7 +2,7 @@
 
 The reference is single-GPU/single-process (SURVEY §2.7); its batch layer is
 `batchDecodeKernel<<<B,256>>>` mapping blockIdx.x -> image
-(cuda-decoder/src/parser.cu:663-682).  The TPU-native equivalents:
+(cuda-decoder/src/parser.cu:663-682).  The mesh equivalents:
 
 - **Batch (data) parallelism**: a size-bucketed batch of coefficient arrays
   is sharded over the `batch` mesh axis with shard_map; each chip runs the
@@ -13,7 +13,7 @@ The reference is single-GPU/single-process (SURVEY §2.7); its batch layer is
   sharded over the `stripe` axis.  Dequant/IDCT/color are per-block or
   per-pixel, and for box upsampling each output row depends only on its own
   MCU row, so stripes compute locally and the full image is materialized
-  with an all_gather along `stripe` (ICI).  This is the decode analog of
+  with an all_gather along `stripe`.  This is the decode analog of
   sequence parallelism; halo exchange slots in here when fancy
   (triangle-filter) upsampling is added.
 """
@@ -106,14 +106,14 @@ def compiled_batch_decoder(
                 mesh=mesh,
                 in_specs=(P("batch"), P("batch")),
                 out_specs=(P("batch"), P("batch"), P()),
-                check_vma=False,  # pallas_call outputs carry no vma info
+                check_vma=False,
             )(coeffs, quant)
         return jax.shard_map(
             local,
             mesh=mesh,
             in_specs=(P("batch"), P("batch"), P("batch")),
             out_specs=(P("batch"), P("batch"), P()),
-            check_vma=False,  # pallas_call outputs carry no vma info
+            check_vma=False,
         )(coeffs, quant, extents)
 
     if bucketed:
@@ -137,7 +137,7 @@ def stripe_geometry(geom: Geometry, n_stripes: int) -> Geometry:
 
 
 def _halo_extend_rows(plane: jnp.ndarray, axis_name: str) -> jnp.ndarray:
-    """Prepend/append 1 row of the neighboring stripes' plane (ICI ppermute).
+    """Prepend/append 1 row of the neighboring stripes' plane (ppermute).
 
     At the global top/bottom the local edge row is replicated instead —
     exactly the edge rule the unsharded triangle filter applies, so the
@@ -193,7 +193,7 @@ def compiled_stripe_decoder(geom: Geometry, mesh: Mesh, fancy: bool = False):
     of rows locally, then the stripes are all_gathered into the full frame.
     The stripe height is a multiple of the MCU height, so box upsampling is
     stripe-local; fancy (triangle) upsampling exchanges 1-row chroma halos
-    over ICI (`_stripe_upsample`) and stays bit-identical to the unsharded
+    (`_stripe_upsample`) and stays bit-identical to the unsharded
     decode.
     """
     from ..pipeline import decode_subsampled_planes, planes_to_rgb
@@ -236,7 +236,7 @@ def decode_striped(
     Host entropy decode -> stripe-sharded device pipeline -> [H, W, 3],
     bit-exact (strict repairs flagged color-boundary pixels, as in
     pipeline.decode).  fancy=True upsamples chroma with the triangle
-    filter, exchanging 1-row halos between stripes over ICI.
+    filter, exchanging 1-row halos between stripes.
     """
     from ..ops.color import unpack_mask
     from ..pipeline import _repair, build_plan

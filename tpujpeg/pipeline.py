@@ -1,6 +1,6 @@
 """Single-image decode pipeline: host entropy decode -> device kernels.
 
-This is the TPU rendition of the reference's fused `decodeKernel`
+This is the device rendition of the reference's fused `decodeKernel`
 (cuda-decoder/src/parser.cu:577-661): the four device stages (dequant +
 inverse zigzag, IDCT rows, IDCT cols, color conversion) become one jitted
 XLA program over dense coefficient arrays.  Entropy decoding happens on the
@@ -20,7 +20,6 @@ mask and the host repairs with oracle math (see ops/color.py).
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -170,12 +169,11 @@ def _idct_planar(
 
     Returns [64, n_blocks] int32: row p = raster position p of every
     block, blocks ordered component-planar (all of comp 0, then 1, ...),
-    mcu-major within a component.  Rationale (PERFORMANCE.md): every op
-    here keeps the long block axis minor (a multiple of 128 in practice),
-    so the VPU runs full-width — the AoS [..., 8, 8] form spent 8/128 of
-    each lane register and measured ~3x slower on the chip.  The inverse
-    zigzag is a STATIC reorder of the 64-plane axis (near-free) instead
-    of a per-element gather.
+    mcu-major within a component.  Every op here keeps the long block axis
+    minor (a multiple of 128 in practice), so elementwise passes run over
+    contiguous memory; the AoS [..., 8, 8] form puts a length-8 axis
+    minor.  The inverse zigzag is a STATIC reorder of the 64-plane axis
+    instead of a per-element gather.
 
     dc (optional): int32 [n_blocks] of RESOLVED DC coefficients that
     override coeffs[:, 0].  The fused FSM chunk program leaves DPCM
@@ -234,55 +232,6 @@ def decode_subsampled_planes(
     return planes
 
 
-_PIXEL_PALLAS = os.environ.get("TPUJPEG_PIXEL_PALLAS", "1") == "1"
-
-
-def _pixel_pallas_mode(geom: Geometry):
-    """None -> XLA pixel path; False/True -> Pallas kernel (compiled /
-    interpret).  Production gate: three full-resolution components on a
-    real TPU backend (tests monkeypatch this to True for interpret-mode
-    bit-diffs on CPU)."""
-    if not _PIXEL_PALLAS or len(geom.comps) != 3:
-        return None
-    if jax.default_backend() == "tpu":
-        return False
-    return None
-
-
-def _rgb_soa_pallas(
-    geom: Geometry, coeffs: jnp.ndarray, quant: jnp.ndarray,
-    dc: jnp.ndarray | None, interpret: bool,
-):
-    """Prologue + fused Pallas pixel kernel + unpack (4:4:4 only).
-
-    The prologue's zigzag reorder + SoA transpose is the same single
-    HBM pass `_idct_planar` pays; everything downstream of it (dequant,
-    DC substitution, IDCT, color, risk flags) runs VMEM-resident in
-    ops/pixels_pallas.py instead of as materialized XLA passes.
-    """
-    from .ops.pixels_pallas import (
-        KMAJOR_OF_NATURAL, TILE, rgb_soa_fused, unpack_pixels,
-    )
-
-    n = geom.n_mcus
-    per_mcu = coeffs.reshape(n, 3, 64)
-    zz = per_mcu.transpose(1, 2, 0)  # [3, 64, n_mcus], zigzag rows
-    # zigzag -> natural -> the kernel's k-major row order, one permute
-    perm = jnp.asarray(np.asarray(ZIGZAG_TO_NATURAL)[KMAJOR_OF_NATURAL])
-    zp_km = jnp.take(zz, perm, axis=1).astype(jnp.int16)
-    if dc is None:
-        dcp = zz[:, 0:1, :].astype(jnp.int32)
-    else:
-        dcp = dc.reshape(n, 3).T[:, None, :].astype(jnp.int32)
-    q_km = jnp.take(quant.astype(jnp.int32), perm, axis=1)[:, :, None]
-    pad = (-n) % TILE
-    if pad:
-        zp_km = jnp.pad(zp_km, ((0, 0), (0, 0), (0, pad)))
-        dcp = jnp.pad(dcp, ((0, 0), (0, 0), (0, pad)))
-    rg, bk = rgb_soa_fused(zp_km, q_km, dcp, interpret=interpret)
-    return unpack_pixels(rg[:, :n], bk[:, :n])
-
-
 def _decode_rgb_planar_fused(
     geom: Geometry, coeffs: jnp.ndarray, quant: jnp.ndarray,
     dc: jnp.ndarray | None = None,
@@ -296,17 +245,13 @@ def _decode_rgb_planar_fused(
     kept pixels, and `pack_mask` runs on the cropped mask, so riskbits
     match the plane path bit-for-bit.
     """
-    mode = _pixel_pallas_mode(geom)
-    if mode is not None:
-        chans, risky = _rgb_soa_pallas(geom, coeffs, quant, dc, mode)
+    pix = _idct_planar(geom, coeffs, quant, dc)  # [64, n_comp*n_mcus]
+    n = geom.n_mcus
+    if len(geom.comps) == 1:
+        y, cb, cr = pix, jnp.zeros_like(pix), jnp.zeros_like(pix)
     else:
-        pix = _idct_planar(geom, coeffs, quant, dc)  # [64, n_comp*n_mcus]
-        n = geom.n_mcus
-        if len(geom.comps) == 1:
-            y, cb, cr = pix, jnp.zeros_like(pix), jnp.zeros_like(pix)
-        else:
-            y, cb, cr = pix[:, :n], pix[:, n : 2 * n], pix[:, 2 * n :]
-        chans, risky = color_channels(y, cb, cr)
+        y, cb, cr = pix[:, :n], pix[:, n : 2 * n], pix[:, 2 * n :]
+    chans, risky = color_channels(y, cb, cr)
     rgb = jnp.stack(chans)  # [3, 64, n_mcus]
     rgb = (
         rgb.reshape(3, 8, 8, geom.mcus_y, geom.mcus_x)
@@ -351,9 +296,8 @@ def planes_to_rgb(
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Full-resolution planes -> (rgb uint8 PLANAR [3, H, W], riskbits).
 
-    Channels stack on the LEADING axis — a trailing length-3 minor dim
-    costs ~40x VPU lane efficiency (PERFORMANCE.md); host boundaries
-    interleave with one cheap np.moveaxis.
+    Channels stack on the LEADING axis, keeping a long minor dim (see
+    _idct_planar); host boundaries interleave with one np.moveaxis.
     """
     if len(planes) == 1:
         y = planes[0][: geom.height, : geom.width]

@@ -8,8 +8,7 @@ This mirrors the reference's cudaH split (CPU Huffman feeding device
 kernels, legacy_versions/cudaH-implementation/src/parser.cu:281-311), which
 was its fastest per-image configuration by ~40x over GPU-serial Huffman
 (BASELINE.md).  The device-side alternative is ops/fsm.py; the batch
-engine (runtime/batch.py) picks between them per deployment
-(PERFORMANCE.md explains when each wins).
+engine (runtime/batch.py) picks between them per deployment.
 """
 
 from __future__ import annotations
@@ -59,7 +58,7 @@ def decode_cpu(
     The complete-on-host path — the analog of the reference's
     cpp-decoder (cpp-decoder/src/decoder.cpp) with OpenMP parallelism —
     bit-identical to the oracle on every stream (tests/test_native.py).
-    No device, no XLA: the right decoder when no TPU is attached (the
+    No device, no XLA: the right decoder when no accelerator is attached (the
     prior fallback ran the XLA pixel program on CPU and lost ~4x to
     PIL on the same cores).  Returns uint8 [height, width, 3] RGB.
     """

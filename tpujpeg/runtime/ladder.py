@@ -1,9 +1,9 @@
 """Compile-ladder accounting: the bounded jit-key space of mixed-size
-serving (VERDICT r4 #5).
+serving.
 
 Every XLA program this engine compiles is keyed on static shapes.  The
 reference serves any image size from one binary
-(cuda-decoder/src/parser.cu:324-331); the TPU answer is a BOUNDED ladder
+(cuda-decoder/src/parser.cu:324-331); the XLA answer is a BOUNDED ladder
 of compiled programs, and this module makes the bound explicit and
 testable for a declared corpus envelope:
 

@@ -42,8 +42,24 @@ def _needs_build() -> bool:
     )
 
 
+def _compile(flags: list[str], out: Path, sources: list[str]) -> None:
+    cmd = [CXX, *flags, "-o", str(out), *sources]
+    march = os.environ.get("TPJ_NATIVE_MARCH", "native")
+    if march:
+        cmd.insert(1, f"-march={march}")
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(
+            f"native build failed ({' '.join(cmd)}):\n{res.stderr[-2000:]}"
+        )
+
+
 def build(force: bool = False) -> Path:
-    """Compile the shared library if stale. Returns its path."""
+    """Compile the shared library if stale. Returns its path.
+
+    Builds with OpenMP; a toolchain without an OpenMP runtime gets a
+    serial build instead (the pragmas compile away, src/omp_compat.h),
+    which is bit-identical and only slower."""
     if not force and not _needs_build():
         return LIB_PATH
     lock_path = _HERE / ".build.lock"
@@ -55,11 +71,11 @@ def build(force: bool = False) -> Path:
                 if not sources:
                     raise FileNotFoundError(f"no C++ sources in {SRC_DIR}")
                 tmp = LIB_PATH.with_suffix(".so.tmp")
-                cmd = [CXX, *CXXFLAGS, "-o", str(tmp), *sources]
-                march = os.environ.get("TPJ_NATIVE_MARCH", "native")
-                if march:
-                    cmd.insert(1, f"-march={march}")
-                subprocess.run(cmd, check=True, capture_output=True, text=True)
+                try:
+                    _compile(CXXFLAGS, tmp, sources)
+                except RuntimeError:
+                    serial = [f for f in CXXFLAGS if f != "-fopenmp"]
+                    _compile(serial + ["-Wno-unknown-pragmas"], tmp, sources)
                 os.replace(tmp, LIB_PATH)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)

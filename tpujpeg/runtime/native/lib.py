@@ -54,6 +54,10 @@ class NativeRuntime:
 
     def __init__(self, dll: ctypes.CDLL):
         self._dll = dll
+        dll.tpj_max_threads.restype = ctypes.c_int32
+        dll.tpj_max_threads.argtypes = []
+        # OpenMP team size of a call with threads=0 (1: serial build)
+        self.max_threads = int(dll.tpj_max_threads())
         common = [
             _u8p, ctypes.c_int64,              # scan, scan_len
             _i64p, ctypes.c_int64,             # seg_offsets, n_segments
@@ -257,7 +261,7 @@ def load() -> NativeRuntime:
         if _runtime is None:
             path = build.build()
             dll = ctypes.CDLL(str(path))
-            if dll.tpj_version() != 7:
+            if dll.tpj_version() != 8:
                 raise RuntimeError("native ABI version mismatch")
             _runtime = NativeRuntime(dll)
     return _runtime

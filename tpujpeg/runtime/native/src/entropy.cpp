@@ -1,6 +1,6 @@
 // Native host entropy decoder for baseline JPEG scans.
 //
-// This is the TPU framework's equivalent of the reference's host-side C++
+// This is the engine's equivalent of the reference's host-side C++
 // decode path (the cudaH strategy: Huffman on the host CPU feeding device
 // kernels, reference legacy_versions/cudaH-implementation/src/parser.cu:281-311,
 // and the serial oracle cpp-decoder/src/parser.cpp:105-142).  Unlike the
@@ -15,7 +15,7 @@
 //
 // Restart segments decode independently (byte-aligned starts, DC reset —
 // ITU T.81 E.1.2), so segmented scans are parallelized with OpenMP: the
-// same segment table the TPU decoder uses for lane parallelism gives the
+// same segment table the device decoder uses for lane parallelism gives the
 // host decoder core parallelism.
 //
 // Scans WITHOUT restart markers parallelize through speculative
@@ -41,7 +41,8 @@
 // Exported C ABI (loaded via ctypes; no pybind11 in this image):
 //   tpj_entropy_decode        - decode one scan into int32 coefficients
 //   tpj_version               - ABI version tag
-#include <omp.h>
+//   tpj_max_threads           - default OpenMP team size (1 if serial)
+#include "omp_compat.h"
 
 #include <algorithm>
 #include <cstdint>
@@ -539,7 +540,10 @@ static int32_t entropy_decode_impl(
 
 extern "C" {
 
-int32_t tpj_version() { return 7; }  // 7: n_threads arg on decode/pixels
+int32_t tpj_version() { return 8; }  // 8: tpj_max_threads
+
+// OpenMP team size a call with n_threads = 0 gets (1 in a serial build).
+int32_t tpj_max_threads() { return omp_get_max_threads(); }
 
 int32_t tpj_entropy_decode(
     const uint8_t* scan, int64_t scan_len,

@@ -2,12 +2,12 @@
 // chroma upsampling (box / libjpeg-fancy) + exact color conversion.
 //
 // Together with entropy.cpp this makes the host path a COMPLETE CPU
-// decoder — the TPU-side analog of the reference's cpp-decoder
+// decoder — the host-side analog of the reference's cpp-decoder
 // (cpp-decoder/src/{idct,color}.cpp), kept bit-identical to the NumPy
 // oracle (tpujpeg/oracle/decoder.py:211-369, itself the reference's
 // bit-exactness contract).  The prior host full-decode ran the XLA
-// pixel program on CPU and lost ~4x to PIL on the same cores (VERDICT
-// r2 weak #4); this stage is plain C++ parallelized with OpenMP over
+// pixel program on CPU and lost to PIL on the same cores; this stage is
+// plain C++ parallelized with OpenMP over
 // MCUs / plane rows.
 //
 // Exactness notes:
@@ -28,7 +28,7 @@
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
-#include <omp.h>
+#include "omp_compat.h"
 
 namespace {
 

@@ -1,7 +1,7 @@
 """Profiling/observability helpers (SURVEY §6 tracing parity).
 
 The reference instruments with NVTX ranges + nsys/ncu scripts
-(cuda-decoder/benchmark/benchmark.cu:41,70, bench_profile.sh).  The TPU
+(cuda-decoder/benchmark/benchmark.cu:41,70, bench_profile.sh).  The JAX
 equivalents: `jax.profiler` device traces viewable in Perfetto/XProf, and
 `jax.named_scope` annotations that label our pipeline stages inside the
 trace.  JSONL timing records come from the benchmark harnesses.
